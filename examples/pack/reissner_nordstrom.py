@@ -1,13 +1,13 @@
 """Example content-pack metric: Reissner-Nordstrom (charged, non-spinning).
 
 Drop-in user extension -- load with:
-    python -m geodesic_raytracing_tpu.cli --content examples/pack \
+    python -m geodesic_raytracing.cli --content examples/pack \
         --metric reissner_nordstrom --pitch -90 --out rn.png
 """
 
 import jax.numpy as jnp
 
-from geodesic_raytracing_tpu.metrics.base import diag_metric
+from geodesic_raytracing.metrics.base import diag_metric
 
 DEFAULTS = {"rs": 1.0, "rq": 0.4}
 DIAGONAL = True

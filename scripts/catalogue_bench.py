@@ -53,11 +53,11 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu import metrics as cat
-    from geodesic_raytracing_tpu.bench_config import flagship_config
-    from geodesic_raytracing_tpu.ops.integrate import Features
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing import metrics as cat
+    from geodesic_raytracing.bench_config import flagship_config
+    from geodesic_raytracing.ops.integrate import Features
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render import pipeline as pl
 
     W, H = (int(v) for v in args.size.split("x"))
     _, _, camera, base_settings, _ = flagship_config(W, H)

@@ -1,6 +1,14 @@
-"""double_kerr floor analysis (VERDICT r4 item 7): is the remaining cost
-after realify-with-symbolic-zeros irreducible, or are shared Ernst
-subexpressions being recomputed across the four metric-component chains?
+"""Per-step operation counts of the integrator, per metric.
+
+For each metric it counts the operations of (a) the batched geodesic
+acceleration and (b) one raw integrator step (``make_step_fn``: the
+acceleration plus the step controller, termination tests and commit) —
+the per-ray-step op count a roofline for the trace divides by.
+
+It also answers the double_kerr floor question (VERDICT r4 item 7): is the
+remaining cost after realify-with-symbolic-zeros irreducible, or are shared
+Ernst subexpressions being recomputed across the four metric-component
+chains?
 
 The reference ``$pin``s shared subexpressions into named temporaries
 (js_interop.cpp:352-380, equation_context.hpp:16-43).  In this framework
@@ -31,13 +39,10 @@ sys.path.insert(0, ".")
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
-
-from geodesic_raytracing_tpu import metrics  # noqa: E402
-from geodesic_raytracing_tpu.ops import integrate  # noqa: E402
+from geodesic_raytracing import metrics
+from geodesic_raytracing.ops import integrate
 
 INTERESTING = ("mul", "add", "sub", "div", "integer_pow", "sqrt", "rsqrt",
                "exp", "log", "sin", "cos", "tanh")
@@ -118,26 +123,39 @@ def analyze(name: str):
     def f(pos, vel):
         return integrate.metric_acceleration(m, pos, vel, params)
 
-    closed = jax.make_jaxpr(f)(pos, vel)
-    jh = jaxpr_hist(closed)
-    dups, total_dup = jaxpr_cse_duplicates(closed)
-    comp = jax.jit(f).lower(pos, vel).compile()
-    hh = hlo_hist(comp.as_text())
+    planar = bool(m.spherically_symmetric)
+    step = integrate.make_step_fn(
+        m, integrate.Features.for_metric(m),
+        integrate.TraceOptions(planar=planar), jnp.abs(vel[0]))
+    state = integrate._StateT(
+        position=pos, velocity=vel, acceleration=f(pos, vel),
+        next_ds=jnp.full((N,), 0.01), running_dlambda_dnew=jnp.ones((N,)),
+        status=jnp.zeros((N,), jnp.int32), steps=jnp.zeros((N,), jnp.int32))
 
     print(f"\n== {name} ==")
-    print("  jaxpr:", "  ".join(f"{k}={jh.get(k, 0)}" for k in INTERESTING),
-          f" total={sum(jh.values())}")
-    print(f"  jaxpr CSE-removable duplicates: {total_dup} "
-          f"({dict(dups.most_common(6))})")
-    print("  hlo:  ", "  ".join(
-        f"{k}={hh.get('multiply' if k == 'mul' else k, 0)}"
-        for k in ("mul", "add", "subtract", "divide", "sqrt", "rsqrt",
-                  "exponential", "log", "tanh")),
-        f" total={sum(hh.values())}")
-    return jh, hh
+    out = {}
+    for label, fn, args in (("accel", f, (pos, vel)),
+                            ("step", lambda s: step(s, params), (state,))):
+        closed = jax.make_jaxpr(fn)(*args)
+        jh = jaxpr_hist(closed)
+        dups, total_dup = jaxpr_cse_duplicates(closed)
+        hh = hlo_hist(jax.jit(fn).lower(*args).compile().as_text())
+        print(f"  {label} jaxpr:", "  ".join(
+            f"{k}={jh.get(k, 0)}" for k in INTERESTING),
+            f" total={sum(jh.values())}")
+        print(f"  {label} jaxpr CSE-removable duplicates: {total_dup} "
+              f"({dict(dups.most_common(6))})")
+        print(f"  {label} hlo:  ", "  ".join(
+            f"{k}={hh.get('multiply' if k == 'mul' else k, 0)}"
+            for k in ("mul", "add", "subtract", "divide", "sqrt", "rsqrt",
+                      "exponential", "log", "tanh")),
+            f" total={sum(hh.values())}")
+        out[label] = (jh, hh)
+    return out["accel"]
 
 
 def main(argv):
+    jax.config.update("jax_platforms", "cpu")
     names = argv[1:] or ["kerr_boyer", "double_kerr", "double_kerr_alt",
                          "ernst"]
     rows = {}

@@ -1,4 +1,4 @@
-"""Regenerate geodesic_raytracing_tpu/render/cie1931_data.py.
+"""Regenerate geodesic_raytracing/render/cie1931_data.py.
 
 Parses the public CIE 1931 2-degree chromaticity dataset (CVRL,
 http://cvrl.ioo.ucl.ac.uk/) out of the reference's embedded copy
@@ -13,7 +13,7 @@ import re
 import sys
 
 SRC = "/root/reference/chromaticity.hpp"
-DST = "geodesic_raytracing_tpu/render/cie1931_data.py"
+DST = "geodesic_raytracing/render/cie1931_data.py"
 
 
 def main() -> int:

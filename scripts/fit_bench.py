@@ -1,9 +1,7 @@
 """Differentiable-path benchmark: seconds per production train step.
 
-Times mesh.make_train_step at the BENCH_NOTES reference configurations
-(256^2 pixels / 2048-step scan, remat 128 — and 128^2/1024), reporting
-steady-state s/step.  North-star target: <= 2 s/step at 256^2
-(VERDICT round-1 item 4).
+Times mesh.make_train_step (default 256^2 pixels / 2048-step scan,
+remat 128), reporting steady-state s/step.
 
 Usage:
     python scripts/fit_bench.py [--cpu] [--size 256] [--max-steps 2048]
@@ -35,13 +33,13 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu import metrics
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.fit import _render_target
-    from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-    from geodesic_raytracing_tpu.parallel.mesh import make_train_step, ray_mesh
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render.pipeline import RenderSettings
+    from geodesic_raytracing import metrics
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.fit import _render_target
+    from geodesic_raytracing.ops.integrate import Features, TraceOptions
+    from geodesic_raytracing.parallel.mesh import make_train_step, ray_mesh
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render.pipeline import RenderSettings
 
     metric = metrics.get_metric("kerr_boyer")
     camera = Camera.default().rotate(pitch=-np.pi / 2)

@@ -38,13 +38,13 @@ def main() -> int:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from geodesic_raytracing_tpu import metrics
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.fit import _render_target
-    from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-    from geodesic_raytracing_tpu.parallel.mesh import make_train_step, ray_mesh
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render.pipeline import RenderSettings
+    from geodesic_raytracing import metrics
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.fit import _render_target
+    from geodesic_raytracing.ops.integrate import Features, TraceOptions
+    from geodesic_raytracing.parallel.mesh import make_train_step, ray_mesh
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render.pipeline import RenderSettings
 
     metric = metrics.get_metric("kerr_boyer")
     camera = Camera.default().rotate(pitch=-np.pi / 2)

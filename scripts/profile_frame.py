@@ -39,7 +39,7 @@ def parse_perfetto(path: str, n_frames: int) -> None:
                 pids[ev["pid"]] = ev["args"].get("name", "")
             elif ev.get("name") == "thread_name":
                 tids[(ev["pid"], ev.get("tid"))] = ev["args"].get("name", "")
-    # The TPU device exposes two tracks: "XLA Modules" (one slice per
+    # The device exposes two tracks: "XLA Modules" (one slice per
     # program execution) and "XLA Ops" (the ops inside).  The program
     # budget comes from the Modules track only; the Ops track gives the
     # within-program breakdown.
@@ -56,7 +56,7 @@ def parse_perfetto(path: str, n_frames: int) -> None:
             continue
         pname = pids.get(ev["pid"], "")
         tname = tids.get((ev["pid"], ev.get("tid")), "")
-        if "/device:" not in pname and "TPU" not in pname.upper():
+        if "/device:" not in pname:
             continue
         name = ev.get("name", "?")
         dur = float(ev.get("dur", 0.0))  # us
@@ -133,9 +133,9 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu.bench_config import flagship_config
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render.pipeline import (
+    from geodesic_raytracing.bench_config import flagship_config
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render.pipeline import (
         RefineBudgetController, render_frame)
 
     W, H = (1920, 1080) if not args.cpu else (192, 108)
@@ -143,7 +143,7 @@ def main() -> int:
     if args.cpu:
         import dataclasses
 
-        from geodesic_raytracing_tpu.ops.integrate import TraceOptions
+        from geodesic_raytracing.ops.integrate import TraceOptions
         settings = dataclasses.replace(
             settings, trace=TraceOptions(max_steps=4096, method="while"))
     backgrounds = bg.checker_background()

@@ -43,18 +43,18 @@ def main() -> int:
     import jax.numpy as jnp
 
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-    from geodesic_raytracing_tpu import metrics, runtime
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.ops import tetrad as tet
-    from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-    from geodesic_raytracing_tpu.physics import (
+    from geodesic_raytracing import metrics, runtime
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.ops import tetrad as tet
+    from geodesic_raytracing.ops.integrate import Features, TraceOptions
+    from geodesic_raytracing.physics import (
         interpolate_camera,
         parallel_transport_tetrads,
         record_geodesic,
     )
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render import colour
-    from geodesic_raytracing_tpu.render.pipeline import (
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render import colour
+    from geodesic_raytracing.render.pipeline import (
         RenderSettings,
         camera_to_generic,
         render_frame,
@@ -81,17 +81,9 @@ def main() -> int:
 
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    # Production trace on TPU (Pallas tiles + lane queues); the plain
-    # while driver on CPU.
-    if args.cpu:
-        trace = TraceOptions(max_steps=args.max_steps)
-    else:
-        from geodesic_raytracing_tpu.bench_config import production_trace
-
-        trace = production_trace(max_steps=args.max_steps)
     settings = RenderSettings(
         width=args.width, height=args.height, anisotropy=4,
-        trace=trace,
+        trace=TraceOptions(max_steps=args.max_steps),
     )
     backgrounds = bg.checker_background(512, 1024)
 

@@ -40,11 +40,11 @@ def main() -> int:
 
     import numpy as np
 
-    from geodesic_raytracing_tpu import metrics
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-    from geodesic_raytracing_tpu.parallel.mesh import ray_mesh, sharded_trace
-    from geodesic_raytracing_tpu.render.pipeline import (
+    from geodesic_raytracing import metrics
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.ops.integrate import Features, TraceOptions
+    from geodesic_raytracing.parallel.mesh import ray_mesh, sharded_trace
+    from geodesic_raytracing.render.pipeline import (
         RenderSettings,
         init_camera_rays,
     )
@@ -86,9 +86,9 @@ def main() -> int:
               flush=True)
 
     # ----- production adaptive pipeline over quarter-row bands ----------
-    from geodesic_raytracing_tpu.parallel.mesh import sharded_adaptive_frame
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing.parallel.mesh import sharded_adaptive_frame
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render import pipeline as pl
 
     backgrounds = bg.checker_background(64, 128)
     asettings = RenderSettings(

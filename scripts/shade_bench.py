@@ -42,7 +42,7 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu.render import background as bg
+    from geodesic_raytracing.render import background as bg
 
     H, W = 1080, 1920
     backgrounds = bg.checker_background()

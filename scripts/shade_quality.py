@@ -4,7 +4,7 @@ Ground truth: 32-probe trilinear bilinear-probe EWA (far above any shipping
 config).  Variants are scored by RMSE over the full field and over the
 high-anisotropy prefix (where the variants actually differ), plus their
 gather-row cost per pixel (the shade stage's currency: 1.0 per single-word
-gather, 1.1 per (4,)-word quad row — measured 50 vs 45.5 M rows/s on v5e).
+gather, 1.1 per (4,)-word quad row).
 
 Usage: python scripts/shade_quality.py [--size WxH]
 """
@@ -37,7 +37,7 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu.render import background as bg
+    from geodesic_raytracing.render import background as bg
 
     W, H = (int(v) for v in args.size.split("x"))
     backgrounds = bg.checker_background()

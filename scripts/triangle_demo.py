@@ -6,26 +6,26 @@ cl.cl:4700-4720) over the production sky render.
 Output: docs/triangle_demo.png — the blue annulus is the lensed ring of
 camera-facing cube top faces, red bands are side faces at grazing
 geometry near the photon ring, and the central images are cubes between
-the camera and the horizon (visible IN FRONT of the shadow).  185,232
-hits, zero dropped candidates (BENCH_NOTES round-5 triangle section).
+the camera and the horizon (visible IN FRONT of the shadow), with zero
+dropped candidates.
 
-Usage: PYTHONPATH=. python scripts/triangle_demo.py   (TPU, ~6 min)
+Usage: PYTHONPATH=. python scripts/triangle_demo.py   (run on the card)
 """
 import sys, time
 sys.path.insert(0, ".")
 import numpy as np
 import jax, jax.numpy as jnp
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops import integrate
-from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-from geodesic_raytracing_tpu.render import background as bg, colour
-from geodesic_raytracing_tpu.render import pipeline as pl
-from geodesic_raytracing_tpu.render.pipeline import RenderSettings
-from geodesic_raytracing_tpu.triangles import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops import integrate
+from geodesic_raytracing.ops.integrate import Features, TraceOptions
+from geodesic_raytracing.render import background as bg, colour
+from geodesic_raytracing.render import pipeline as pl
+from geodesic_raytracing.render.pipeline import RenderSettings
+from geodesic_raytracing.triangles import (
     TriangleScene, make_cube, precompute_object, subtriangulate)
-from geodesic_raytracing_tpu.triangles.render import intersect_scene_compact
+from geodesic_raytracing.triangles.render import intersect_scene_compact
 
 m = metrics.get_metric("schwarzschild")
 params = m.params()
@@ -67,8 +67,7 @@ print(f"hits {hit_n.sum()} in {time.perf_counter()-t0:.1f}s", flush=True)
 # Background sky render (full quality) + composite.
 sky = pl.render_frame(m, cam, params, bg.checker_background(),
                       RenderSettings(width=W, height=H, anisotropy=4,
-                                     trace=TraceOptions(max_steps=4096,
-                                                        method="pallas")),
+                                     trace=TraceOptions(max_steps=4096)),
                       feats)
 sky = np.asarray(colour.lin_to_srgb(sky))
 img = np.clip(sky, 0, 1)

@@ -7,11 +7,11 @@ import dataclasses
 
 import numpy as np
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops.integrate import TraceOptions
-from geodesic_raytracing_tpu.render import background as bg
-from geodesic_raytracing_tpu.render import pipeline as pl
+from geodesic_raytracing import metrics
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops.integrate import TraceOptions
+from geodesic_raytracing.render import background as bg
+from geodesic_raytracing.render import pipeline as pl
 
 
 def _frames(name, anisotropy=2, **adaptive_kw):
@@ -66,7 +66,7 @@ def test_traced_only_shading_corners_exact():
     # small and the median pixel is exact.
     # 64x64 on a hard checker is the softening worst case: a quarter block
     # spans ~3% of the sky here vs 0.1% at 1080p.  Production softening is
-    # measured by scripts/shade_quality.py / BENCH_NOTES instead.
+    # measured by scripts/shade_quality.py and tests/test_shade_quality.py.
     d = np.abs(dense - adap).max(axis=-1)
     assert np.median(d) < 0.01
     assert d.mean() < 0.06, d.mean()
@@ -119,7 +119,7 @@ def test_prepass_kill_upsample_semantics():
 
 def test_refine_budget_controller_logic():
     """Bucket selection: grow immediately, shrink only with patience."""
-    from geodesic_raytracing_tpu.render.pipeline import RefineBudgetController
+    from geodesic_raytracing.render.pipeline import RefineBudgetController
 
     c = RefineBudgetController(margin=1.3, latency=0, down_patience=3)
     assert c.fraction(0.375) == 0.375  # no data yet -> the cap
@@ -143,7 +143,7 @@ def test_refine_budget_controller_logic():
 def test_refine_budget_controller_render_stream():
     """A controlled frame stream renders identically to the fixed budget
     when the settled bucket covers the frame's demand."""
-    from geodesic_raytracing_tpu.render.pipeline import RefineBudgetController
+    from geodesic_raytracing.render.pipeline import RefineBudgetController
 
     metric = metrics.get_metric("schwarzschild")
     params = metric.params()

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from geodesic_raytracing_tpu.utils.checkpoint import (
+from geodesic_raytracing.utils.checkpoint import (
     load_checkpoint,
     save_checkpoint,
 )

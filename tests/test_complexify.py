@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from geodesic_raytracing_tpu.ops.complexify import realify
+from geodesic_raytracing.ops.complexify import realify
 
 
 def _assert_close(fn, args, rtol=2e-5, atol=2e-6):

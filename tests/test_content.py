@@ -7,13 +7,13 @@ import textwrap
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu.content import load_config, load_pack
+from geodesic_raytracing.content import load_config, load_pack
 
 
 def make_pack(tmp_path):
     (tmp_path / "my_hole.py").write_text(textwrap.dedent("""
         import jax.numpy as jnp
-        from geodesic_raytracing_tpu.metrics.base import diag_metric
+        from geodesic_raytracing.metrics.base import diag_metric
 
         DEFAULTS = {"rs": 2.0}
         DIAGONAL = True
@@ -65,7 +65,7 @@ def test_load_pack(tmp_path):
 
 def test_pack_metric_traces(tmp_path):
     """A pack metric runs through the real integrator end to end."""
-    from geodesic_raytracing_tpu.ops.integrate import (
+    from geodesic_raytracing.ops.integrate import (
         Features, TraceOptions, init_ray_state, trace_rays,
     )
 

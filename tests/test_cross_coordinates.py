@@ -10,11 +10,11 @@ import dataclasses
 import numpy as np
 import pytest
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops import integrate
-from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-from geodesic_raytracing_tpu.render import pipeline as pl
+from geodesic_raytracing import metrics
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops import integrate
+from geodesic_raytracing.ops.integrate import Features, TraceOptions
+from geodesic_raytracing.render import pipeline as pl
 
 
 def rdata_for(name, size=48):

@@ -6,12 +6,12 @@ import pytest
 
 import imageio.v3 as iio
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops.integrate import TraceOptions
-from geodesic_raytracing_tpu.render import background as bg
-from geodesic_raytracing_tpu.render import colour
-from geodesic_raytracing_tpu.render.pipeline import RenderSettings, render_frame
+from geodesic_raytracing import metrics
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops.integrate import TraceOptions
+from geodesic_raytracing.render import background as bg
+from geodesic_raytracing.render import colour
+from geodesic_raytracing.render.pipeline import RenderSettings, render_frame
 
 CONFIGS = {
     "schwarzschild": dict(max_steps=8192),

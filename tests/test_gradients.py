@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.ops.integrate import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.ops.integrate import (
     ESCAPED,
     Features,
     TraceOptions,
@@ -88,8 +88,8 @@ def test_grad_wrt_camera_pose():
     Gradient of the mean escape angle w.r.t. the camera radius vs FD."""
     import dataclasses
 
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.render import pipeline as pl
 
     m = metrics.get_metric("schwarzschild")
     feats = Features.for_metric(m)
@@ -213,11 +213,11 @@ def test_soft_lyapunov_window_grad_matches_fd():
     stop-gradient weights — its autodiff gradient must match the finite
     difference of the SAME loss, with shadow-edge pixels (past the soft
     cap) contributing."""
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.fit import _render_target
-    from geodesic_raytracing_tpu.parallel.mesh import make_train_step, ray_mesh
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.fit import _render_target
+    from geodesic_raytracing.parallel.mesh import make_train_step, ray_mesh
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render import pipeline as pl
 
     from conftest import tier
 
@@ -264,9 +264,9 @@ def test_grad_finite_with_dead_rays():
     Regression for the pre-commit finiteness probe in make_step_fn."""
     import dataclasses
 
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.ops import integrate
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.ops import integrate
+    from geodesic_raytracing.render import pipeline as pl
 
     metric = metrics.get_metric("kerr_boyer")
     camera = Camera.default().rotate(pitch=-np.pi / 2)

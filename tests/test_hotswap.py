@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.runtime.hotswap import HotSwapProgram, bake
+from geodesic_raytracing import metrics
+from geodesic_raytracing.runtime.hotswap import HotSwapProgram, bake
 
 
 def test_bake_matches_dynamic():

@@ -1,15 +1,14 @@
 """Integrator physics anchors (SURVEY §4): straight lines in Minkowski,
 photon-sphere capture threshold, conserved quantities on Kerr, null-norm
-drift, and Pallas/XLA agreement."""
+drift, and while/scan driver agreement."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.ops import geometry
-from geodesic_raytracing_tpu.ops.integrate import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.ops import geometry
+from geodesic_raytracing.ops.integrate import (
     ACTIVE,
     DEAD,
     ESCAPED,
@@ -18,7 +17,6 @@ from geodesic_raytracing_tpu.ops.integrate import (
     init_ray_state,
     trace_rays,
 )
-from geodesic_raytracing_tpu.ops.pallas import trace_rays_pallas
 
 
 def make_rays(n, r0=7.0, angles=None):
@@ -165,70 +163,6 @@ def test_scan_method_matches_while():
     )
 
 
-@pytest.mark.parametrize("name", ["schwarzschild", "kerr_boyer", "kerr_schild"])
-def test_pallas_interpret_matches_xla(name):
-    m = metrics.get_metric(name)
-    params = m.params()
-    if m.config.coordinate_system == "CARTESIAN":
-        pos = np.tile([0.0, 0.0, -7.0, 0.0], (32, 1)).astype(np.float32)
-        ang = np.linspace(0.05, 0.6, 32)
-        vel = np.stack(
-            [np.ones(32), np.sin(ang), np.cos(ang), np.zeros(32)], -1
-        ).astype(np.float32)
-        pos, vel = jnp.asarray(pos), jnp.asarray(vel)
-    else:
-        pos, vel = make_rays(32)
-    feats = Features.for_metric(m)
-    st = init_ray_state(m, pos, vel, params, feats)
-    opts = TraceOptions(max_steps=1024)
-    ref = trace_rays(m, st, params, features=feats, opts=opts)
-    pal = trace_rays_pallas(m, st, params, features=feats, opts=opts,
-                            tile=16, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(ref.status), np.asarray(pal.status)
-    )
-    ok = np.asarray(ref.status) == ESCAPED
-    np.testing.assert_allclose(
-        np.asarray(ref.position)[ok], np.asarray(pal.position)[ok],
-        rtol=1e-4, atol=1e-4,
-    )
-
-
-@pytest.mark.parametrize("name", ["schwarzschild", "kerr_boyer"])
-def test_pallas_queue_matches_xla(name):
-    """queue_depth (in-kernel lane-queue compaction) must be
-    behaviour-neutral: every ray integrates the exact same step sequence
-    regardless of which layer/lane its queue slot is, so fates and final
-    states match the XLA while driver exactly (escaped positions to fp
-    tolerance)."""
-    m = metrics.get_metric(name)
-    params = m.params()
-    pos, vel = make_rays(64)
-    feats = Features.for_metric(m)
-    st = init_ray_state(m, pos, vel, params, feats)
-    # Kill a scattered subset pre-trace (prepass-killed rays ride the
-    # queue as dead-on-arrival layers and must drain without corruption).
-    st = st._replace(status=st.status.at[::7].set(2))
-    opts = TraceOptions(max_steps=4096, queue_depth=4, check_every=8)
-    ref = trace_rays(m, st, params, features=feats,
-                     opts=TraceOptions(max_steps=4096))
-    # cost sort key exercises the serpentine layering
-    key = jnp.abs(st.velocity[:, 0])
-    pal = trace_rays_pallas(m, st, params, features=feats, opts=opts,
-                            tile=16, interpret=True, sort_key=key)
-    np.testing.assert_array_equal(
-        np.asarray(ref.status), np.asarray(pal.status)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(ref.steps), np.asarray(pal.steps)
-    )
-    ok = np.asarray(ref.status) == ESCAPED
-    np.testing.assert_allclose(
-        np.asarray(ref.position)[ok], np.asarray(pal.position)[ok],
-        rtol=1e-4, atol=1e-4,
-    )
-
-
 def test_euler_integrator_close_to_verlet():
     """step_euler parity (cl.cl:3352-3377): first-order path, same fates."""
     m = metrics.get_metric("schwarzschild")
@@ -277,8 +211,8 @@ def test_planar_mode_matches_full_4d():
     escape angles as the full 4D march for a spherically symmetric metric."""
     import dataclasses
 
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.render import pipeline as pl
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.render import pipeline as pl
 
     m = metrics.get_metric("schwarzschild")
     cam = Camera.default().rotate(pitch=-np.pi / 2)
@@ -367,38 +301,3 @@ def test_weak_field_deflection_angle():
         expected = 2.0 / b + (15.0 * np.pi / 16.0) / b ** 2
         np.testing.assert_allclose(measured, expected, rtol=0.04,
                                    err_msg=f"b={b}")
-
-
-@pytest.mark.parametrize("qd", [1, 4])
-def test_pallas_slim_pack_matches_full(qd):
-    """TraceOptions.fresh_pack/slim_out (9-row in / 11-row out pack for
-    fresh states): fates, step counts and rdl match the full 17/16-row
-    layout exactly; positions agree to fp tolerance (the in-kernel
-    re-derived launch acceleration may differ by ulps, which chaotic
-    photon-ring rays amplify — but never enough to change a fate)."""
-    import dataclasses
-
-    m = metrics.get_metric("kerr_boyer")
-    params = m.params()
-    pos, vel = make_rays(64)
-    feats = Features.for_metric(m)
-    st = init_ray_state(m, pos, vel, params, feats)
-    st = st._replace(status=st.status.at[::5].set(2))  # prepass kills
-    key = jnp.abs(st.velocity[:, 0])
-    fx = jnp.abs(st.velocity[:, 0])
-    base = TraceOptions(max_steps=2048, queue_depth=qd, check_every=8)
-    slim = dataclasses.replace(base, fresh_pack=True, slim_out=True)
-    a = trace_rays_pallas(m, st, params, features=feats, opts=base,
-                          tile=16, interpret=True, sort_key=key, f_in_x=fx)
-    b = trace_rays_pallas(m, st, params, features=feats, opts=slim,
-                          tile=16, interpret=True, sort_key=key, f_in_x=fx)
-    np.testing.assert_array_equal(np.asarray(a.status), np.asarray(b.status))
-    np.testing.assert_array_equal(np.asarray(a.steps), np.asarray(b.steps))
-    np.testing.assert_array_equal(
-        np.asarray(a.running_dlambda_dnew), np.asarray(b.running_dlambda_dnew)
-    )
-    ok = np.asarray(a.status) == ESCAPED
-    np.testing.assert_allclose(
-        np.asarray(a.position)[ok], np.asarray(b.position)[ok],
-        rtol=1e-3, atol=5e-3,
-    )

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import geodesic_raytracing_tpu as grt
-from geodesic_raytracing_tpu.metrics import REGISTRY, get_metric
+import geodesic_raytracing as grt
+from geodesic_raytracing.metrics import REGISTRY, get_metric
 
 # A generic probe point per coordinate system, away from horizons/axes.
 PROBE = {
@@ -54,7 +54,7 @@ def test_metric_evaluates(name):
 def test_metric_partials_finite(name):
     m = get_metric(name)
     x = probe_for(m)
-    from geodesic_raytracing_tpu.ops.geometry import metric_and_partials
+    from geodesic_raytracing.ops.geometry import metric_and_partials
 
     g, dg = metric_and_partials(m.fn, x, m.params())
     assert np.all(np.isfinite(np.asarray(dg))), name
@@ -116,7 +116,7 @@ def test_structure_claims(name):
     """Metric.nonzeros() must cover every actually-nonzero entry, and the
     structure-pruned inverse + geodesic acceleration must match the dense
     paths (the trace-time zero pruning in ops.geometry)."""
-    from geodesic_raytracing_tpu.ops import geometry
+    from geodesic_raytracing.ops import geometry
 
     m = get_metric(name)
     nz = m.nonzeros()
@@ -181,8 +181,8 @@ def test_rank1_decomposition_matches_fn():
     import jax
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu.metrics.base import minkowski_plus
-    from geodesic_raytracing_tpu.ops import geometry
+    from geodesic_raytracing.metrics.base import minkowski_plus
+    from geodesic_raytracing.ops import geometry
 
     rng = np.random.default_rng(7)
     for name in ("kerr_schild", "kerr_newman_schild"):
@@ -223,10 +223,10 @@ def test_rank1_render_matches_dense(tmp_path):
 
     import jax.numpy as jnp
 
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-    from geodesic_raytracing_tpu.render import background as bg
-    from geodesic_raytracing_tpu.render.pipeline import (RenderSettings,
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.ops.integrate import Features, TraceOptions
+    from geodesic_raytracing.render import background as bg
+    from geodesic_raytracing.render.pipeline import (RenderSettings,
                                                          render_frame)
 
     m = get_metric("kerr_schild")

@@ -1,109 +1,55 @@
-"""Mosaic legality guard: the integrator step of EVERY metric must avoid
-primitives that Pallas TPU cannot lower.
+"""GPU lowering guard: every catalogue metric's production trace must lower
+for CUDA.
 
-The Pallas kernel cannot be compiled on the CPU backend, so TPU lowering
-failures (``Unimplemented primitive ... atan2``/``scatter``) only surface
-on real hardware — this test scans the traced step jaxpr instead, which
-catches them in the CPU suite.  The banned set was probed on a v5e
-(jax 0.9): Mosaic implements sin/cos/tan/tanh/exp/log/log1p/pow/sqrt/
-rsqrt but not the rest, and indexed updates (``x.at[i].set``) lower to
-scatter.  Mosaic-safe replacements live in ops.geometry (arctan/arctan2/
-arcsin/arccos).
+The CPU suite has no GPU to compile for, but XLA can still lower a program
+for the ``cuda`` platform here: a primitive or shape the GPU route refuses
+fails this lowering on the CPU instead of on the card.
 """
 
 import jax
 import jax.numpy as jnp
 import pytest
 
-from geodesic_raytracing_tpu.metrics import REGISTRY, get_metric
-from geodesic_raytracing_tpu.ops import integrate
-
-BANNED = integrate._MOSAIC_BANNED
-
-# Metrics that need the XLA while fallback (metric_pallas_compatible
-# False).  The double-Kerr family's complex Ernst potentials are lowered
-# to real pairs by ops.complexify.realify, so the set is currently empty;
-# a user-pack metric with unlowered complex math would land here.
-COMPLEX_FALLBACK: set = set()
+from geodesic_raytracing.metrics import REGISTRY, get_metric
+from geodesic_raytracing.ops import integrate
 
 
-def _prims(jaxpr, out):
-    for eq in jaxpr.eqns:
-        out.add(eq.primitive.name)
-        for p in eq.params.values():
-            if hasattr(p, "jaxpr"):
-                _prims(p.jaxpr, out)
-            if isinstance(p, (list, tuple)):
-                for q in p:
-                    if hasattr(q, "jaxpr"):
-                        _prims(q.jaxpr, out)
-    return out
+def _lower_for_cuda(fn, *args):
+    return jax.jit(fn).trace(*args).lower(lowering_platforms=("cuda",))
 
 
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_step_fn_is_mosaic_legal(name):
+    """The production ``while`` trace of ``name`` (planar for spherically
+    symmetric metrics, as the pipeline runs it) lowers for CUDA."""
     metric = get_metric(name)
-    compatible = integrate.metric_pallas_compatible(metric)
-    assert compatible == (name not in COMPLEX_FALLBACK), (
-        f"{name}: pallas compatibility changed — if this metric no longer "
-        "needs the while fallback, update COMPLEX_FALLBACK; if a previously "
-        "legal metric regressed, fix its Mosaic-illegal primitives"
-    )
-    if name in COMPLEX_FALLBACK:
-        return
-
-    # Also check the PLANAR variant (iota pins) for the symmetric metrics —
-    # metric_pallas_compatible only traces the default step.
     features = integrate.Features.for_metric(metric)
     planar = bool(getattr(metric, "spherically_symmetric", False))
-    opts = integrate.TraceOptions(planar=planar)
-    N = 128
-    f_in_x = jnp.ones((N,))
-    step = integrate.make_step_fn(metric, features, opts, f_in_x)
+    opts = integrate.TraceOptions(max_steps=16384, method="while",
+                                  planar=planar)
     params = metric.params()
-    st = integrate._StateT(
-        position=jnp.full((4, N), 3.0),
-        velocity=jnp.ones((4, N)),
-        acceleration=jnp.zeros((4, N)),
-        next_ds=jnp.full((N,), 0.01),
-        running_dlambda_dnew=jnp.ones((N,)),
-        status=jnp.zeros((N,), jnp.int32),
-        steps=jnp.zeros((N,), jnp.int32),
+    n = 128
+    state = integrate.RayState(
+        position=jnp.full((n, 4), 3.0),
+        velocity=jnp.ones((n, 4)),
+        acceleration=jnp.zeros((n, 4)),
+        next_ds=jnp.full((n,), 0.01),
+        running_dlambda_dnew=jnp.ones((n,)),
+        status=jnp.zeros((n,), jnp.int32),
+        steps=jnp.zeros((n,), jnp.int32),
     )
-    jaxpr = jax.make_jaxpr(lambda s: step(s, params))(st)
-    used = _prims(jaxpr.jaxpr, set())
-    bad = used & BANNED
-    assert not bad, (
-        f"{name}: step jaxpr contains Mosaic-illegal primitives {sorted(bad)}"
-        " — use the ops.geometry replacements"
-    )
-
-
-def test_scalar_pow_flagged_incompatible():
-    """Mosaic lowers vector math.powf but has NO scalar powf: a pow on a
-    params-only (rank-0) expression fails the remote TPU compile (found
-    by the full-catalogue sweep on the hawking metric's k_dash).  The
-    CPU-side compatibility scan must flag it."""
-    from geodesic_raytracing_tpu.metrics.base import (Metric, diag_metric,
-                                                      make_config)
-
-    def bad_fn(x, params):
-        s = params["q"] ** 0.37  # params-only -> scalar pow in-kernel
-        r = x[1]
-        return diag_metric(-1.0, 1.0, r * r * s, r * r * s)
-
-    m = Metric(name="_scalar_pow_probe", fn=bad_fn,
-               config=make_config("polar_base", name="_scalar_pow_probe"),
-               defaults={"q": 2.0}, diagonal=True, depends_on=(1,))
-    assert not integrate.metric_pallas_compatible(m)
+    lowered = _lower_for_cuda(
+        lambda s: integrate.trace_rays(metric, s, params, features=features,
+                                       opts=opts), state)
+    assert "while" in lowered.as_text()
 
 
 def test_pow_pos_matches_pow():
-    """geometry.pow_pos (the Mosaic-safe exp/log form) must match ** on
-    positive bases and give exactly 0 at base 0."""
+    """geometry.pow_pos (the exp/log form) must match ** on positive bases
+    and give exactly 0 at base 0."""
     import numpy as np
 
-    from geodesic_raytracing_tpu.ops import geometry
+    from geodesic_raytracing.ops import geometry
 
     z = jnp.asarray([0.0, 1e-6, 0.5, 1.0, 7.3, 1234.5], jnp.float32)
     for e in (1.0 / 3.0, 0.25, 1.4):

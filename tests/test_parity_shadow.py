@@ -18,12 +18,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops.integrate import Features, TraceOptions
-from geodesic_raytracing_tpu.render import background as bg
-from geodesic_raytracing_tpu.render import pipeline as pl
-from geodesic_raytracing_tpu.render.pipeline import RenderSettings, render_frame
+from geodesic_raytracing import metrics
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops.integrate import Features, TraceOptions
+from geodesic_raytracing.render import background as bg
+from geodesic_raytracing.render import pipeline as pl
+from geodesic_raytracing.render.pipeline import RenderSettings, render_frame
 
 # Fast tier renders 128^2 (edge brackets are pixel-relative, so the
 # analytic assertions hold at any resolution); SUITE_FULL=1 restores the

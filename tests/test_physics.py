@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.ops import geometry, tetrad
-from geodesic_raytracing_tpu.ops.integrate import Features
-from geodesic_raytracing_tpu.physics import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.ops import geometry, tetrad
+from geodesic_raytracing.ops.integrate import Features
+from geodesic_raytracing.physics import (
     interpolate_camera,
     parallel_transport_quantity,
     parallel_transport_tetrads,

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu.render import background as bg
-from geodesic_raytracing_tpu.render import colour
-from geodesic_raytracing_tpu.render.pipeline import angle_to_tex
+from geodesic_raytracing.render import background as bg
+from geodesic_raytracing.render import colour
+from geodesic_raytracing.render.pipeline import angle_to_tex
 
 
 def test_angle_to_tex_ranges():
@@ -259,7 +259,7 @@ def test_probe_segments_single_segment_budget_reclamps():
 def test_cie_table_matches_reference_constants():
     """Spot-check the embedded table against the reference's constants
     (chromaticity.hpp rows 360, 555, 830)."""
-    from geodesic_raytracing_tpu.render import cie1931_data as cie
+    from geodesic_raytracing.render import cie1931_data as cie
 
     assert cie.WL_START == 360.0 and cie.WL_END == 830.0
     assert len(cie.XY_1NM) == 471

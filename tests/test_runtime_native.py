@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from geodesic_raytracing_tpu import runtime
+from geodesic_raytracing import runtime
 
 
 def test_native_builds():

@@ -13,8 +13,8 @@ Each was validated in isolation on synthetic harnesses
 (scripts/shade_quality.py); this test pins their COMPOUND effect
 end-to-end at render scale against the full-quality shade of the very
 same traced rays, so a future economy cannot silently stack on top of
-the existing ones.  Thresholds carry the measured round-4 margins
-(recorded in BENCH_NOTES.md); they are quality numbers, not fp
+the existing ones.  Thresholds carry the measured margins (CPU
+renders); they are quality numbers, not fp
 tolerances — a legitimate new economy that moves them must re-record
 its own margin.
 """
@@ -28,22 +28,21 @@ import pytest
 
 from conftest import tier
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.bench_config import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.bench_config import (
     PRODUCTION_PROBE_SEGMENTS,
     PRODUCTION_REFINE_SEGMENTS,
 )
-from geodesic_raytracing_tpu.camera import Camera
-from geodesic_raytracing_tpu.ops.integrate import TraceOptions
-from geodesic_raytracing_tpu.render import background as bg
-from geodesic_raytracing_tpu.render import pipeline as pl
+from geodesic_raytracing.camera import Camera
+from geodesic_raytracing.ops.integrate import TraceOptions
+from geodesic_raytracing.render import background as bg
+from geodesic_raytracing.render import pipeline as pl
 
 # (metric, RMSE limit 0-255, bad-pixel-fraction limit at |diff| > 16),
 # per tier — the softening scales with texture frequency RELATIVE to the
 # 2-px interpolated blocks, so the small fast-tier frame (96^2 against
 # the same checker) legitimately reads several times higher than
-# production resolution.  Round-4 measured values (BENCH_NOTES
-# "shade-quality gate"); limits ~1.4x the measured value so a compounded
+# production resolution.  Limits ~1.4x the measured value so a compounded
 # economy trips the gate while resolution-independent noise does not.
 CASES = [
     # name, (fast rmse, fast bad), (full rmse, full bad)

@@ -4,13 +4,13 @@ pipeline must reduce to ordinary raytracing of a cube."""
 import jax.numpy as jnp
 import numpy as np
 
-from geodesic_raytracing_tpu import metrics
-from geodesic_raytracing_tpu.ops.integrate import (
+from geodesic_raytracing import metrics
+from geodesic_raytracing.ops.integrate import (
     Features,
     TraceOptions,
     init_ray_state,
 )
-from geodesic_raytracing_tpu.triangles import (
+from geodesic_raytracing.triangles import (
     TriangleScene,
     make_cube,
     precompute_object,
@@ -142,8 +142,8 @@ def test_schwarzschild_nearfield_cube_hits():
     hit.  At the old coarse recording (16 slots x 64 steps) slot 0 spanned
     the whole camera->horizon approach and the within-segment linear
     interpolation missed every near-field object (zero hits)."""
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.render.pipeline import (
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.render.pipeline import (
         RenderSettings,
         init_camera_rays,
     )
@@ -169,8 +169,8 @@ def test_schwarzschild_nearfield_cube_hits():
 def test_binned_overflow_counter():
     """with_stats must report dropped candidates when the budget is too
     small, zero when it fits, and the well-budgeted result must match."""
-    from geodesic_raytracing_tpu.triangles.render import intersect_scene_binned
-    from geodesic_raytracing_tpu.ops import integrate as ops_integrate
+    from geodesic_raytracing.triangles.render import intersect_scene_binned
+    from geodesic_raytracing.ops import integrate as ops_integrate
 
     m = metrics.get_metric("minkowski")
     params = m.params()
@@ -178,8 +178,8 @@ def test_binned_overflow_counter():
     cube = make_cube([-8.0, 0.0, -3.0, 0.0])
     geo = precompute_object(m, cube, params, feats, n_steps=128, segments=8)
     scene = TriangleScene.build([cube])
-    from geodesic_raytracing_tpu.camera import Camera
-    from geodesic_raytracing_tpu.render.pipeline import (
+    from geodesic_raytracing.camera import Camera
+    from geodesic_raytracing.render.pipeline import (
         RenderSettings,
         init_camera_rays,
     )
@@ -248,7 +248,7 @@ def test_compact_matches_dense_and_grouped():
     fixed point as grouped; compaction is a reordering, not an
     approximation) and report zero drops when its budgets cover the
     survivor counts."""
-    from geodesic_raytracing_tpu.triangles.render import (
+    from geodesic_raytracing.triangles.render import (
         intersect_scene_compact)
 
     m = metrics.get_metric("minkowski")
@@ -291,7 +291,7 @@ def test_compact_matches_dense_and_grouped():
                                np.asarray(col_c)[both], atol=1e-5)
 
     # Budgets cover this scene -> zero drops reported.
-    from geodesic_raytracing_tpu.ops.integrate import trace_rays_recorded
+    from geodesic_raytracing.ops.integrate import trace_rays_recorded
     _, path = trace_rays_recorded(m, st, params, **common)
     hit_s, col_s, stats = intersect_scene_compact(
         m, path, scene, [geo, geo2], params, block=8, obj_budget=16,
@@ -319,9 +319,9 @@ def test_compact_matches_dense_and_grouped():
 
 def test_grouped_overflow_counters():
     """intersect_scene_grouped with_stats reports candidate/chunk drops."""
-    from geodesic_raytracing_tpu.triangles.render import (
+    from geodesic_raytracing.triangles.render import (
         intersect_scene_grouped)
-    from geodesic_raytracing_tpu.ops.integrate import trace_rays_recorded
+    from geodesic_raytracing.ops.integrate import trace_rays_recorded
 
     m = metrics.get_metric("minkowski")
     params = m.params()
